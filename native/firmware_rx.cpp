@@ -4,7 +4,7 @@
 // subframe-ledger -> relative-pseudorange chain with the reference
 // firmware's exact numeric semantics, driven over a recorded/synthesized
 // 16.368 MHz 1-bit capture.  Used by tests/test_firmware_parity.py to
-// assert that the TPU pipeline reproduces the firmware pipeline's
+// assert that the JAX pipeline reproduces the firmware pipeline's
 // nav-bit stream bit-exactly, its code phase / Doppler within the
 // firmware's quantization, and (fw_master_run) its relative
 // pseudoranges — the BASELINE.md correctness line, compared
@@ -716,7 +716,7 @@ void bits_extraction(FwChannel& ch, uint8_t short_bit, uint32_t now,
     if (out.bit_cnt < out.bit_cap) {
       // record the PRE-polarity bit (raw prompt-sign majority; the
       // inv_polarity_flag XOR is undone — the flag is constant within
-      // a bit, nav_data.c:64-66).  The TPU scan emits the same raw
+      // a bit, nav_data.c:64-66).  The JAX scan emits the same raw
       // convention (nav/frame.py owns polarity), so the streams
       // compare bit-exactly with no mid-run flip when the firmware
       // (re-)discovers its polarity (nav_data.c:285-305).
@@ -1108,7 +1108,7 @@ uint16_t master_filter_code_phase(FwMaster& m, uint32_t now) {
 
 // gps_master_final_pseudorange_calc (gps_master.c:294-329), FILTERED
 // path (ENABLE_CODE_FILTER=1, the config.h:36 production default — the
-// TPU side compares with its own code filter enabled)
+// JAX side compares with its own code filter enabled)
 void final_pseudorange_calc(FwMaster& m, uint32_t curr_tick_time,
                             int32_t ref_time_diff_ms, uint32_t ref_time_ms,
                             int ref_idx) {
@@ -1221,7 +1221,7 @@ extern "C" {
 // skips the frequency search exactly as a user hint in main.c:59-73; a
 // ZERO value runs the full cold frequency search (that is also the
 // firmware's convention — given_freq_offset_hz == 0 means no hint).
-// Outputs: nav bits (PRE-polarity — raw prompt-sign majority, the TPU
+// Outputs: nav bits (PRE-polarity — raw prompt-sign majority, the JAX
 // scan's convention; see bits_extraction) with their emission epoch,
 // slot-0 code-phase/Doppler trajectories (fine units / Hz), counts,
 // and milestone epochs.  Returns 0 on success.
@@ -1290,7 +1290,7 @@ int32_t fw_rx_run(const uint8_t* capture, int64_t n_ms, int32_t prn,
 // Pseudoranges use the FILTERED firmware path (ENABLE_CODE_FILTER=1,
 // the config.h:36 production default): gps_master.c:332-388 window
 // averaging, emitted with the window-center timestamp the firmware
-// itself compensates tow_s by.  Compare against the TPU receiver with
+// itself compensates tow_s by.  Compare against the JAX receiver with
 // its code filter enabled.  Outputs: per-channel acquisition results /
 // milestones, per-channel nav-bit streams (pre-polarity, see
 // fw_rx_run), and the relative pseudorange series appended at each

@@ -1,4 +1,4 @@
-// Native host runtime for the TPU GPS receiver: capture ingest.
+// Native host runtime for the JAX GPS receiver: capture ingest.
 //
 // The firmware's ingest layer is SPI-slave DMA into a circular
 // double-buffer with a guarded snapshot protocol

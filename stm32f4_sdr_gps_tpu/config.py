@@ -1,4 +1,4 @@
-"""Typed configuration for the TPU-native GPS L1 C/A receiver.
+"""Typed configuration for the JAX GPS L1 C/A receiver.
 
 This replaces the reference firmware's compile-time macro header
 (``/root/reference/Firmware/project_main/config.h``) with frozen dataclasses.
@@ -43,7 +43,7 @@ GPS_OFFSET_TIME_MS = 68.802   # gps_master.c:31
 class SignalPlan:
     """Sampling plan for one IQ capture.
 
-    The TPU-native default is *complex baseband* IQ at 2.046 MHz
+    The default is *complex baseband* IQ at 2.046 MHz
     (2 samples/chip).  The reference firmware's plan (1-bit real samples at
     16.368 MHz with a 4.092 MHz IF, config.h:23-26) is expressed with the
     same dataclass and converted to the baseband plan by
@@ -76,7 +76,7 @@ class SignalPlan:
         return CODE_RATE_HZ / self.sample_rate_hz
 
 
-#: TPU-native default: complex baseband, 2 samples/chip.
+#: Default plan: complex baseband, 2 samples/chip.
 BASEBAND_PLAN = SignalPlan()
 
 #: The reference front-end plan: MAX2769 1-bit real sign stream.
@@ -95,7 +95,7 @@ class AcqConfig:
 
     The grid matches the firmware (config.h:41-44): +/-7 kHz in 500 Hz
     steps.  The detector is peak/second-peak on FFT circular correlation
-    (TPU-native) instead of serial histogram voting; an epoch-voting mode
+    instead of serial histogram voting; an epoch-voting mode
     compatible with the firmware's histogram logic also exists
     (acquisition.c:196-416).
     """
@@ -117,20 +117,20 @@ class AcqConfig:
     freq_hist_min_votes: int = 3      # acquisition.c:382
     freq_hist_ratio: float = 1.7      # acquisition.c:402
     timeout_ms: int = 120_000         # acquisition.c:13
-    # Evaluate the acquisition cube with matmul DFTs on the MXU instead
-    # of FFT HLOs (S=2046 is not a power of two, so XLA's FFT lowering
-    # Bluesteins it; a dense (S, S) contraction is MXU-native).  Same
-    # outputs to ~1e-5 relative (ops.correlate.matmul_circular_correlate).
+    # Evaluate the acquisition cube with dense (S, S) matmul DFTs on the
+    # tensor cores instead of FFT HLOs (S=2046 = 2*3*11*31 is not a
+    # power of two).  Same outputs to ~1e-5 relative at "highest"
+    # (ops.correlate.matmul_circular_correlate).
     use_matmul_dft: bool = False
-    # Matmul precision of the DFT contractions: "default" = one-pass
-    # bf16 inputs with f32 accumulation (measured 1.9 ms vs 11.3 ms per
-    # 32-PRN cube on v5e — 5.9x); "highest" = f32-equivalent 6-pass.
-    # bf16 rounding is ~1e-3 of the per-product magnitude and the
-    # noncoherent integration averages it: detection statistics, peak
-    # ratios and sub-sample interpolation agree with f32 to ~1e-3
-    # (pinned by tests/test_acquisition.py bf16-emulation test), far
-    # inside the detect_ratio margins.  Only affects MXU lowering; the
-    # CPU backend computes f32 either way.
+    # Matmul precision of the DFT contractions.  "default" lets XLA pick
+    # the fastest f32 contraction: on an H100 that is TF32 (10-bit
+    # mantissa inputs, f32 accumulation); "highest" is full f32.  Input
+    # rounding of ~1e-3 of the per-product magnitude is averaged by the
+    # noncoherent integration: detection statistics, peak ratios and
+    # sub-sample interpolation agree with f32 to ~1e-3 (pinned by the
+    # reduced-precision emulation test in tests/test_acquisition.py),
+    # far inside the detect_ratio margins.  The CPU backend computes
+    # f32 either way.  Speed of either on the card: not measured.
     dft_precision: str = "default"
 
     @property
@@ -167,7 +167,7 @@ class TrackConfig:
     dt_s: float = 1e-3                # epoch period (tracking.c:194)
     # Loop cadence in epochs. The reference applies PLL once per 17 ms
     # superframe; running every epoch with the same per-step gains is the
-    # TPU-native default (higher bandwidth, stable at 1 kHz updates).
+    # default here (higher bandwidth, stable at 1 kHz updates).
     pll_scale: float = 1.0 / 4.0      # per-epoch gain scale vs reference slot cadence
     fll_scale: float = 1.0 / 4.0
     snr_window_epochs: int = 200      # GPS_SNR_CALC_LENGTH (tracking.c:26)
@@ -235,51 +235,7 @@ class TrackConfig:
     # Pre-track refinement zone, half-chips (tracking.c:17)
     pre_track_zone_halfchips: int = 30
     pre_track_epochs: int = 20
-    # Correlator backend: fused Pallas kernel (TPU) vs jnp reference.
-    # With use_pallas the code_table passed to track_block must be the
-    # ops.pallas_epl.upsampled_code_doubled table.
-    use_pallas: bool = False
-    # THE production TPU path: run the whole T-epoch x C-channel loop
-    # inside one Pallas kernel (ops.pallas_track_scan; 458x RT at 32 ch
-    # on v5e).  track_block dispatches to it; the code_table must be
-    # the doubled upsampled table (the Receiver builds it when this or
-    # use_pallas is set).  Requires the 2.046 MHz BASEBAND_PLAN; any
-    # channel count (padded to the 8-sublane tile internally).
-    # None (default) = backend-aware: resolved to True on TPU and False
-    # elsewhere at trace time (resolve_in_kernel_scan) — a default
-    # ReceiverConfig() on a TPU runs the measured production kernel,
-    # not the jnp reference scan (round-4 verdict weak-2).
-    in_kernel_scan: bool | None = None
-    pallas_interpret: bool = False    # CPU debugging of the kernels
     emit_correlators: bool = False    # include E/L outputs (diagnostics)
-    # Perf-ablation knob for the in-kernel scan (tools/epb_probe.py):
-    # "" in production.  A TrackConfig field (static jit key) so ablated
-    # variants can never silently reuse a stale compiled kernel.
-    ablate: str = ""
-
-
-def _default_platform() -> str:
-    """The backend the default jit device belongs to ("tpu", "cpu", ...).
-    A function (not a constant) so tests can monkeypatch it."""
-    import jax
-
-    return jax.default_backend()
-
-
-def resolve_in_kernel_scan(cfg: TrackConfig,
-                           platform: str | None = None) -> bool:
-    """Resolve TrackConfig.in_kernel_scan's backend-aware default.
-
-    ``None`` means auto: the Pallas in-kernel scan on TPU (the measured
-    production program), the jnp ``lax.scan`` elsewhere.  Explicit
-    True/False always wins (True off-TPU requires
-    ``cfg.pallas_interpret`` to lower).  Called at trace time — the
-    backend is fixed per process, so resolution is deterministic, and
-    XLA's compile cache is keyed per backend anyway.
-    """
-    if cfg.in_kernel_scan is not None:
-        return bool(cfg.in_kernel_scan)
-    return (platform or _default_platform()) == "tpu"
 
 
 #: Deep-acquisition preset: 4 ms coherent spans with a Doppler grid fine

@@ -40,7 +40,7 @@ BAD_POLARITY_TIMEOUT_MS = 2 * SUBFRAME_DURATION_MS
 # Preamble as an 8-bit integer (and its inversion) for the shift-
 # register match in the hot bit loop — equality on one int replaces a
 # per-bit list slice + tuple build (the framer is the dominant
-# per-channel host cost at high channel counts, docs/SCALING.md).
+# per-channel host cost at high channel counts, tools/host_cost_probe.py).
 _PRE_INT = 0
 for _b in PREAMBLE_BITS:
     _PRE_INT = (_PRE_INT << 1) | _b

@@ -1,6 +1,6 @@
 """Device-side C/A replica sampling (the "code NCO").
 
-TPU-native replacement for ``gps_generate_prn_data2``
+Vectorized replacement for ``gps_generate_prn_data2``
 (``gps_misc.c:282-300``): instead of expanding 1023 chips into a 16 kbit
 bit-buffer with an integer sub-chip shift, we gather the bipolar code at a
 *fractional* code phase for all channels and all correlator lags at once.

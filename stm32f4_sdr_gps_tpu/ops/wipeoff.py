@@ -1,6 +1,6 @@
 """Carrier NCO wipe-off.
 
-TPU-native replacement for the firmware's binary quarter-rate NCO
+Vectorized replacement for the firmware's binary quarter-rate NCO
 (``gps_misc.c:211-274``): an exact complex rotation at the tracked Doppler
 with phase carried across epochs (the firmware keeps phase in a 32-bit
 accumulator, ``if_freq_accum``; we keep fractional cycles, wrapped each

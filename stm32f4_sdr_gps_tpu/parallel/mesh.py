@@ -11,8 +11,9 @@ axes here (SURVEY.md §2.3):
   (replaces the serial 10-epochs-per-bin scan, acquisition.c:280-312).
 
 Everything uses ``shard_map`` over an explicit ``jax.sharding.Mesh`` so
-the same code runs on a real multi-chip TPU slice or the virtual CPU
-mesh used in tests.
+the same code runs on several GPUs of one host or on the virtual CPU
+mesh used in tests.  Every GPU reaches every other over NVLink at the
+same rate, so the mesh shape follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ def sharded_acquisition_power(
     gather_output: bool = False,   # replicate the cube on every device
     #   (multi-process runs need a fully-addressable result)
     dft: tuple | None = None,  # (wc, ws) replicated matmul-DFT tables —
-    #   MXU path (acquire.engine semantics); None = FFT path
+    #   matmul path (acquire.engine semantics); None = FFT path
     dft_precision=None,        # lax precision of the DFT matmuls
     #   (acquire.engine.dft_precision_enum; None = HIGHEST)
 ) -> jnp.ndarray:
@@ -70,7 +71,7 @@ def sharded_acquisition_power(
     def local(epochs_l, cfc_l, rot_l, *dft_l):
         def body(acc, x):
             xd = x[None, :] * rot_l                    # (D, S)
-            if dft_l:                                  # MXU matmul-DFT
+            if dft_l:                                  # matmul-DFT
                 corr = matmul_circular_correlate(
                     xd, cfc_l, *dft_l,
                     precision=dft_precision or jax.lax.Precision.HIGHEST)
@@ -146,7 +147,7 @@ def halo_extend_blocks(blocks: jnp.ndarray, halo: int, mesh: Mesh,
     can finish it locally.  (B, N) sharded on B over ``axis`` →
     (B, N + halo) with blocks[i, N:] = blocks[i+1, :halo] (last block
     zero-padded).  Uses ``ppermute`` — ICI neighbor exchange, the
-    TPU-native form of the firmware's ISR↔mainline double-buffer copy
+    Device form of the firmware's ISR↔mainline double-buffer copy
     handshake (signal_capture.c:100-141, SURVEY.md §2.3)."""
     n_shards = mesh.shape[axis]
 

@@ -78,7 +78,7 @@ def acquire_sharded(
     rot = doppler_rotations(jnp.asarray(bins), s, plan.sample_rate_hz)
     dft = None
     if cfg.use_matmul_dft:
-        # MXU matmul-DFT build, tiny uploads (acquire.engine semantics)
+        # matmul-DFT build (acquire.engine semantics)
         dft = dft_tables_device(s)
         packed = jnp.asarray(pack_code_bits(padded, plan))
         cfc = code_spectrum_conj_matmul(unpack_code_table(packed, s), *dft)
@@ -101,7 +101,7 @@ class StreamingTracker:
 
     The host feeds blocks in order (from a file, the native ring buffer,
     or a network stream); the device state stays resident and sharded
-    across the mesh between calls — the TPU-native analogue of the
+    across the mesh between calls — the batched analogue of the
     firmware's resident per-channel state advanced by the 1 ms ISR.
     """
 
@@ -139,59 +139,11 @@ class StreamingTracker:
         s = self.plan.samples_per_epoch
         n = len(samples) // s
         epochs = jnp.asarray(samples[: n * s].reshape(n, s), jnp.complex64)
-        from ..config import resolve_in_kernel_scan
-
-        if resolve_in_kernel_scan(self.cfg):
-            return self._process_in_kernel(epochs)
         with jax.sharding.set_mesh(self.mesh):
             epochs = replicated(epochs, self.mesh)
             self.state, outs = track_block(
                 self.state, epochs, self.code_table, self.plan, self.cfg
             )
-        return outs
-
-    def _process_in_kernel(self, epochs):
-        """Channel-sharded in-kernel scan via shard_map.
-
-        A ``pallas_call`` is a custom call GSPMD cannot partition, so
-        the production kernel runs explicitly per channel shard: each
-        device advances its channel subset through the whole block
-        (zero collectives — the channel axis is embarrassingly
-        parallel), with the epoch stream replicated.  Per-shard channel
-        counts are tile-padded inside the kernel, so any divisible
-        sharding works."""
-        from jax.sharding import PartitionSpec as P
-
-        axes = tuple(self.mesh.axis_names)
-
-        def local(st, tbl, ep):
-            return track_block(st, ep, tbl, self.plan, self.cfg)
-
-        def lead_spec(x):
-            return P(axes, *([None] * (x.ndim - 1)))
-
-        key = ("in_kernel", epochs.shape, self.code_table.shape)
-        fn = self._fn_cache.get(key)
-        if fn is None:
-            st_specs = jax.tree.map(lead_spec, self.state)
-            out_shapes = jax.eval_shape(local, self.state,
-                                        self.code_table, epochs)
-            _, outs_shapes = out_shapes
-            o_specs = jax.tree.map(
-                lambda x: P(None, axes) if x.ndim == 2 else P(None),
-                outs_shapes)
-            fn = jax.jit(jax.shard_map(
-                local,
-                mesh=self.mesh,
-                in_specs=(st_specs, P(axes, None), P(None, None)),
-                out_specs=(st_specs, o_specs),
-                # pallas_call's out_shape structs carry no vma
-                # annotation, so the VMA checker cannot type the
-                # kernel's outputs
-                check_vma=False,
-            ))
-            self._fn_cache[key] = fn
-        self.state, outs = fn(self.state, self.code_table, epochs)
         return outs
 
     def process_digest(self, samples: np.ndarray, cfg_recv):
@@ -201,8 +153,7 @@ class StreamingTracker:
         Each device digests its own channel subset inside the shard_map
         (the digest is channel-independent), so the only device→host
         traffic a consumer needs is the ~kB of gathered digest leaves —
-        never the (T, C) outputs.  Works for both the jnp scan and the
-        in-kernel Pallas backend (cfg.in_kernel_scan)."""
+        never the (T, C) outputs."""
         from jax.sharding import PartitionSpec as P
 
         from ..runtime.digest import digest_block
@@ -236,7 +187,6 @@ class StreamingTracker:
                 mesh=self.mesh,
                 in_specs=(st_specs, P(axes, None), P(None, None)),
                 out_specs=(st_specs, d_specs),
-                check_vma=False,
             ))
             self._fn_cache[key] = fn
         self.state, d = fn(self.state, self.code_table, epochs)

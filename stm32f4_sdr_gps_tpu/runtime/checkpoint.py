@@ -134,15 +134,8 @@ def save_receiver(path: str, receiver) -> str:
     if receiver.track_state is not None:
         for f in TrackState._fields:
             arrays[f"ts_{f}"] = np.asarray(getattr(receiver.track_state, f))
+        # the raw (C, 1023) bipolar table the tracking scan reads
         arrays["code_table"] = np.asarray(receiver.code_table)
-        # canonical (C, 1023) bipolar table: the device form above is
-        # BACKEND-dependent (doubled upsampled for Pallas, raw for the
-        # jnp scan) — the loader rebuilds the right form for ITS
-        # backend from this (a CPU-written checkpoint resumed on a TPU
-        # previously fed the raw table to the Pallas kernel: garbage
-        # correlations, found by tools/tpu_e2e.py)
-        if getattr(receiver, "code_table_np", None) is not None:
-            arrays["code_table_raw"] = np.asarray(receiver.code_table_np)
     host = dict(
         version=_FORMAT_VERSION,
         config=receiver.config,
@@ -203,13 +196,7 @@ def load_receiver(path: str):
         rx._pending_cnt = host["pending_cnt"]
     rx._phase_ref_prn = int(host.get("phase_ref_prn", 0))
     if "code_table" in data:
-        if "code_table_raw" in data:
-            rx.code_table_np = np.asarray(data["code_table_raw"])
-            rx.code_table = rx._device_code_table(rx.code_table_np)
-        else:
-            # pre-raw checkpoint: backend form as stored (only safe on
-            # the backend that wrote it)
-            rx.code_table = jnp.asarray(data["code_table"])
+        rx.code_table = jnp.asarray(data["code_table"])
         rx.track_state = TrackState(
             **{
                 f: jnp.asarray(data[f"ts_{f}"])

@@ -17,11 +17,9 @@ never leave the device:
   pulled full I/Q prompt streams just to compute two moments);
 * the block's Doppler integral (carrier-phase observable increment).
 
-This is the TPU-native form of the firmware's ISR→mainline hand-off,
+This is the device form of the firmware's ISR→mainline hand-off,
 which likewise forwards only decoded bits and loop state, never raw
 samples (nav_data.c:46-138 consumes the prompt sign, not the buffer).
-It also makes the full receiver runnable on transports where bulk
-device→host reads are slow or broken (docs/SCALING.md §1).
 
 The aided-sync/coherent weak-signal chain (runtime.receiver
 ``_maybe_aided_sync``) is ALSO digest-fed: the prompt sign-flip
@@ -87,10 +85,9 @@ def digest_block(outs, final_state, cfg: TrackConfig, code_filter_len: int,
 
     # compact ragged bit events to (cap, C): the k-th ready epoch (in
     # time order) lands in row k.  cumsum + one-hot reduction instead
-    # of a stable argsort — XLA lowers sort to a bitonic network on
-    # TPU, which was ~70 us of the receiver's per-block program
-    # (bench r4: 345.7x wired vs 403.9x bare kernel); the one-hot
-    # select is a (T, C, cap) elementwise+reduce the VPU eats
+    # of a stable argsort: a sort lowers to a sorting network, while the
+    # one-hot select is a (T, C, cap) elementwise+reduce that fuses.
+    # Its cost on the card: not measured.
     bit_count = jnp.minimum(ready.sum(axis=0), cap).astype(jnp.int32)
     row = jnp.cumsum(ready.astype(jnp.int32), axis=0) - 1       # (T, C)
     onehot = ready[:, :, None] & (

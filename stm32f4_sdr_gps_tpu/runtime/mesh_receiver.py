@@ -6,8 +6,7 @@ stages run on an explicit ``jax.sharding.Mesh``:
 * acquisition shards PRNs over ``chan`` and epoch blocks over ``time``
   with ``psum`` merge (parallel.streaming.acquire_sharded);
 * tracking keeps the channel axis sharded across every device with
-  state resident between blocks (parallel.streaming.StreamingTracker),
-  on either tracking backend (jnp scan or the in-kernel Pallas scan);
+  state resident between blocks (parallel.streaming.StreamingTracker);
 * the device digest (runtime.digest) runs per channel shard inside the
   same shard_map as the tracking scan, so the default readback is the
   ~kB gathered digest — full (T, C) readback only when the aided-sync
@@ -110,11 +109,8 @@ class MeshReceiver(Receiver):
         state = init_state(len(tracked), refined, dopplers,
                            start_epoch=start_epoch,
                            window=cfg.track.pll_check_window)
-        # the tracker's table follows the configured backend (doubled
-        # upsampled for the Pallas paths, bipolar for the jnp scan)
         self.tracker = StreamingTracker(
-            state, self._device_code_table(table), self.mesh,
-            cfg.plan, cfg.track)
+            state, table, self.mesh, cfg.plan, cfg.track)
         for ch in live:
             ch.state_name = "TRACKING"
 

@@ -3,7 +3,7 @@
 The reference receives a 1-bit real sign stream at 16.368 MHz (IF
 4.092 MHz ~= Fs/4) over SPI as 16-bit LSB-first words
 (``signal_capture.c:9-11, 143-177``) and wipes the carrier off with a
-binary Fs/4 NCO (``gps_misc.c:211-240``).  The TPU-native pipeline works
+binary Fs/4 NCO (``gps_misc.c:211-240``).  The receiver works
 on complex baseband at 2.046 MHz; this module converts the reference's
 wire format into that plan so recorded firmware captures remain usable:
 
@@ -103,10 +103,9 @@ def reference_to_baseband_device(words,
     whole epochs (16368 samples = 1023 words) so the mix phase stays
     aligned.
 
-    This is the TPU ingest path: a 1-bit capture uploads at
+    This is the device ingest path: a 1-bit capture uploads at
     2 046 bytes/ms and the 16x-larger complex stream is only ever
-    materialized in HBM (the round-4 verdict's whole-receiver-on-TPU
-    requirement; tools/tpu_e2e.py is the driver).
+    materialized in device memory.
     """
     import jax.numpy as jnp
 

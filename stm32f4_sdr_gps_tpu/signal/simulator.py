@@ -9,7 +9,7 @@ noise knob ``:40-58``) with a proper multi-satellite IQ synthesizer:
 * 50 bps nav-bit modulation (real LNAV subframes via
   :mod:`stm32f4_sdr_gps_tpu.signal.nav_message`),
 * calibrated C/N0 with complex AWGN,
-* complex-baseband output (TPU plan) or 1-bit real IF output matching the
+* complex-baseband output (the default plan) or 1-bit real IF output matching the
   reference front-end format (config.h:23-26).
 
 Ground truth (code phase / Doppler / bit stream per satellite) is returned

@@ -3,7 +3,7 @@
 The firmware refines the coarse acquisition code phase by exhaustively
 correlating a +/-15 half-chip zone over ~20-30 rounds spread across TDM
 slots, then voting for the longest chain of identical argmax phases
-(``tracking.c:398-499``).  TPU-native: correlate the whole zone for all
+(``tracking.c:398-499``).  Here: correlate the whole zone for all
 channels over E epochs in one batched tensor op, integrate power
 non-coherently, and take the (interpolated) argmax — same capability, one
 program, no state machine.
@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..config import SignalPlan, TrackConfig
+from ..ops.correlate import CORRELATOR_PRECISION
 from ..ops.replica import sample_replicas
 from ..ops.wipeoff import carrier_wipeoff
 
@@ -41,7 +42,8 @@ def _pretrack_power(
     def per_epoch(acc_phase, x):
         acc, phase = acc_phase
         y, phase = carrier_wipeoff(x, doppler_hz, phase, plan.sample_rate_hz)
-        corr = jnp.einsum("cn,ckn->ck", y, replicas.astype(y.dtype))
+        corr = jnp.einsum("cn,ckn->ck", y, replicas.astype(y.dtype),
+                          precision=CORRELATOR_PRECISION)
         return (acc + jnp.abs(corr) ** 2, phase), None
 
     phase0 = jnp.zeros_like(doppler_hz)

@@ -1,6 +1,6 @@
 """Batched multi-channel tracking: one ``lax.scan`` over 1 ms epochs.
 
-TPU-native re-design of the firmware's tracking fast path
+Batched re-design of the firmware's tracking fast path
 (``tracking.c:92-170`` and the bit-sync part of ``nav_data.c:46-138``):
 
 * all C channels are advanced *every* epoch as a batch axis (the firmware
@@ -80,34 +80,18 @@ def track_epoch_step(
         * (1.0 + state.doppler_hz / jnp.float32(FREQ_L1_HZ))
     )
 
-    if cfg.use_pallas:
-        # fused wipe-off + E/P/L kernel (code_table = doubled upsampled
-        # code from ops.pallas_epl.upsampled_code_doubled)
-        from ..ops.pallas_epl import epl_correlate_pallas
+    lags = (-cfg.epl_spacing_chips, 0.0, cfg.epl_spacing_chips)
+    replicas = sample_replicas(
+        code_table, state.code_phase_chips, code_freq_cps, s_cnt, lags
+    )
 
-        epl = epl_correlate_pallas(
-            x_epoch, code_table,
-            state.code_phase_chips, state.doppler_hz,
-            state.carrier_phase_cycles, fs,
-            interpret=cfg.pallas_interpret,
-        )
-        carrier_phase = (
-            state.carrier_phase_cycles + state.doppler_hz * (s_cnt / fs)
-        )
-        carrier_phase = carrier_phase - jnp.floor(carrier_phase)
-    else:
-        lags = (-cfg.epl_spacing_chips, 0.0, cfg.epl_spacing_chips)
-        replicas = sample_replicas(
-            code_table, state.code_phase_chips, code_freq_cps, s_cnt, lags
-        )
+    # ---- carrier NCO wipe-off -------------------------------------------
+    y, carrier_phase = carrier_wipeoff(
+        x_epoch, state.doppler_hz, state.carrier_phase_cycles, fs
+    )
 
-        # ---- carrier NCO wipe-off ---------------------------------------
-        y, carrier_phase = carrier_wipeoff(
-            x_epoch, state.doppler_hz, state.carrier_phase_cycles, fs
-        )
-
-        # ---- E/P/L correlators ------------------------------------------
-        epl = epl_correlate(y, replicas)          # (C, 3) complex
+    # ---- E/P/L correlators ----------------------------------------------
+    epl = epl_correlate(y, replicas)              # (C, 3) complex
     ie, ip, il = epl[:, 0].real, epl[:, 1].real, epl[:, 2].real
     qe, qp, ql = epl[:, 0].imag, epl[:, 1].imag, epl[:, 2].imag
 
@@ -400,20 +384,10 @@ def track_block(
 ) -> tuple:
     """Scan ``T`` epochs of signal through all channels.
 
-    Returns ``(final_state, TrackOutputs with (T, C) leaves)``.
-
-    With ``cfg.in_kernel_scan`` the whole loop runs inside one Pallas
-    kernel (ops.pallas_track_scan — the production TPU path); the
-    ``code_table`` must then be the doubled upsampled table, same as
-    ``cfg.use_pallas``.
+    Returns ``(final_state, TrackOutputs with (T, C) leaves)``.  XLA
+    fuses the replica gather, wipe-off and E/P/L reduction of each
+    epoch; the loop itself is one ``while`` over epochs.
     """
-    from ..config import resolve_in_kernel_scan
-
-    if resolve_in_kernel_scan(cfg):
-        from ..ops.pallas_track_scan import track_block_pallas
-
-        return track_block_pallas(state, epochs, code_table, plan, cfg,
-                                  interpret=cfg.pallas_interpret)
 
     def body(st, x):
         return track_epoch_step(st, x, code_table, plan, cfg)

@@ -1,6 +1,6 @@
 """Tracking channel state pytree.
 
-The TPU-native equivalent of ``gps_tracking_t`` + the bit-sync half of
+The batched equivalent of ``gps_tracking_t`` + the bit-sync half of
 ``gps_nav_data_t`` (gps_misc.h:62-133).  All leaves carry a leading
 channel axis so N channels advance *every* epoch as a batch — no TDM
 multiplexing, no NCO phase rewind (SURVEY.md §2.3).  The whole state is a

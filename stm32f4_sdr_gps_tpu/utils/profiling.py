@@ -92,7 +92,7 @@ class Profiler:
 
     @contextlib.contextmanager
     def device_trace(self, logdir: str):
-        """Capture a jax.profiler trace around a block (TPU timeline)."""
+        """Capture a jax.profiler trace around a block (device timeline)."""
         import jax
 
         jax.profiler.start_trace(logdir)

@@ -24,18 +24,18 @@ breaks the segment count.
 import numpy as np
 
 
-def match_bits(fw_bits, fw_times, tpu_bits_list, max_offset=9):
-    """Pair each firmware bit with its majority-overlap TPU bit.
+def match_bits(fw_bits, fw_times, ours_bits_list, max_offset=9):
+    """Pair each firmware bit with its majority-overlap JAX bit.
 
     The firmware's extraction grid wobbles a few epochs around noise
     re-anchors (every on-grid flip rebases old_swap_time,
     nav_data.c:105-129).  A fw bit at offset |d| <= 9 still overlaps
-    its nearest TPU bit by >= 11 of 20 epochs, so that bit carries the
+    its nearest JAX bit by >= 11 of 20 epochs, so that bit carries the
     same transmitted bit.  Returns (xor_stream, times, unmatched)."""
     fb = np.asarray(fw_bits)
     fs = np.asarray(fw_times)
-    tt = np.asarray([t for t, _ in tpu_bits_list])
-    tb = np.asarray([v for _, v in tpu_bits_list])
+    tt = np.asarray([t for t, _ in ours_bits_list])
+    tb = np.asarray([v for _, v in ours_bits_list])
     xs, ts = [], []
     unmatched = 0
     for v, s in zip(fb, fs):
@@ -62,12 +62,12 @@ def xor_runs(xs):
     return runs
 
 
-def assert_bits_piecewise(tag, prn, fw_ch, tpu_bits, min_matched=150):
+def assert_bits_piecewise(tag, prn, fw_ch, ours_bits, min_matched=150):
     """Assert the two pipelines' bit streams are identical up to the
     module-docstring contract (global/segment inversions + junk bits at
     transitions)."""
     xs, _, unmatched = match_bits(
-        fw_ch["bits"], fw_ch["bit_times"], tpu_bits[prn])
+        fw_ch["bits"], fw_ch["bit_times"], ours_bits[prn])
     n = len(xs)
     assert n >= min(min_matched, int(0.8 * max(len(fw_ch["bits"]), 1))), (
         tag, prn, n)

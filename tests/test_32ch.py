@@ -1,7 +1,6 @@
 """BASELINE configs 2 & 5: 32-PRN cold start and streaming mesh receiver."""
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -141,43 +140,6 @@ def test_mesh_receiver_aided_sync_engages():
     for ch in report.channels:
         assert ch.bit_synced, ch.prn
         assert ch.bit_count > 5, ch.prn
-
-
-def test_streaming_tracker_in_kernel_scan(capture):
-    """The production in-kernel Pallas scan under the channel-sharded
-    mesh: a pallas_call is a custom call GSPMD cannot partition, so
-    StreamingTracker runs it per channel shard via shard_map — results
-    must match the unsharded in-kernel run exactly (channels are
-    independent; state persists across blocks)."""
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 virtual devices")
-    from stm32f4_sdr_gps_tpu.ops.pallas_epl import upsampled_code_doubled
-    from stm32f4_sdr_gps_tpu.track.scan import track_block
-
-    x, truth, sats = capture
-    mesh = make_mesh(time=2, chan=4)
-    prns = list(range(1, 33))
-    u2 = upsampled_code_doubled(ca_table_bipolar(prns))
-    cp0 = np.array([PRESENT.get(p, (0.0, 500.0))[1] for p in prns])
-    dop0 = np.array([PRESENT.get(p, (0.0, 0.0))[0] for p in prns])
-    cfg = TrackConfig(in_kernel_scan=True, pallas_interpret=True)
-    state = init_state(32, cp0 + 0.1, dop0 + 20.0)
-    tracker = StreamingTracker(state, u2, mesh, PLAN, cfg)
-
-    spe = PLAN.samples_per_epoch
-    outs_list = [tracker.process(x[i * 20 * spe: (i + 1) * 20 * spe])
-                 for i in range(2)]
-    dop = np.concatenate([np.asarray(o.doppler_hz) for o in outs_list])
-    assert dop.shape == (40, 32)
-
-    # unsharded reference: same kernel, one device
-    st = init_state(32, cp0 + 0.1, dop0 + 20.0)
-    epochs = jnp.asarray(x[: 40 * spe].reshape(40, spe))
-    st, outs_ref = track_block(st, epochs[:20], jnp.asarray(u2), PLAN, cfg)
-    st, outs_ref2 = track_block(st, epochs[20:], jnp.asarray(u2), PLAN, cfg)
-    ref = np.concatenate([np.asarray(outs_ref.doppler_hz),
-                          np.asarray(outs_ref2.doppler_hz)])
-    np.testing.assert_allclose(dop, ref, rtol=0, atol=1e-4)
 
 
 def test_mesh_receiver_late_rise_and_drop():

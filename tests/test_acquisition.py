@@ -105,8 +105,9 @@ def test_refine_doppler_sub_hz():
 def test_matmul_dft_matches_fft_cube():
     """ops.correlate.matmul_circular_correlate == the FFT path.
 
-    The matmul-DFT formulation targets the MXU (S=2046 has no power-of-
-    two FFT); the acquisition cube it produces must match the FFT cube
+    The matmul-DFT formulation runs the transform as dense products
+    (S=2046 has no power-of-two FFT); the acquisition cube it produces
+    must match the FFT cube
     to float32 round-off so every detector/threshold downstream is
     path-independent."""
     import jax.numpy as jnp
@@ -131,7 +132,7 @@ def test_matmul_dft_matches_fft_cube():
 
 
 def test_acquire_with_matmul_dft():
-    """acquire() end-to-end on the MXU matmul-DFT path."""
+    """acquire() end-to-end on the matmul-DFT path."""
     sat = SimSat(prn=21, doppler_hz=2400.0, code_phase_chips=77.7,
                  cn0_dbhz=45.0)
     x, _ = simulate_capture([sat], num_epochs=10, seed=12)
@@ -143,11 +144,11 @@ def test_acquire_with_matmul_dft():
 
 
 def test_bf16_dft_precision_detection_equivalence(monkeypatch):
-    """AcqConfig.dft_precision="default" lowers the DFT matmuls to
-    one-pass bf16 on the MXU (measured 1.9 vs 11.3 ms per 32-PRN cube
-    on v5e).  Precision only affects TPU lowering — the CPU backend is
-    f32 either way — so this test EMULATES the bf16 rounding (cast
-    inputs to bfloat16, accumulate f32) and pins that detection
+    """AcqConfig.dft_precision="default" lets the GPU round the DFT
+    matmul inputs (TF32 on an H100: 10-bit mantissa, f32 accumulation).
+    The CPU backend is f32 either way, so this test EMULATES a coarser
+    rounding — bfloat16 inputs (7-bit mantissa), f32 accumulation,
+    which bounds TF32's — and pins that detection
     decisions, peak statistics and sub-sample interpolation agree with
     f32 to ~1e-3 at both strong and threshold C/N0 (the noncoherent
     integration averages the per-product rounding)."""

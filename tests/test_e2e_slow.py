@@ -3,8 +3,8 @@
 ~29 s of 4-satellite IQ at 2.046 MHz with geometrically consistent
 delays derived from a planted receiver position — the complete
 BASELINE.json pipeline through to a PVT solution.  Takes ~1 min on the
-CPU test mesh, so it is gated behind RUN_SLOW=1 (the bench path runs
-the same flow on the TPU).
+CPU test mesh, so it is gated behind RUN_SLOW=1 (chip_smoke.py phase 3
+runs the same flow, with all 32 PRNs searched, on a GPU).
 """
 
 import os

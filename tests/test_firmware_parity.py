@@ -11,7 +11,7 @@ majority vote (tracking.c:92-393, nav_data.c:46-253, gps_misc.c:48-300,
 acquisition.c:196-275).
 
 Both pipelines consume the same independently-generated wire-format
-capture (native/capture_gen); the TPU pipeline must reproduce the
+capture (native/capture_gen); the JAX pipeline must reproduce the
 firmware pipeline's nav-bit stream BIT-EXACTLY on the shared 20 ms
 grid, and agree on Doppler / code delay within the firmware's own
 jitter and quantization.  This is deliberately NOT each-vs-planted-
@@ -66,17 +66,17 @@ def both_pipelines(tmp_path_factory):
         track_block_epochs=500,
     )
     rx = Receiver(cfg)
-    tpu_bits = {p: [] for p, _ in CHANNELS}
+    ours_bits = {p: [] for p, _ in CHANNELS}
     orig = rx._push_channel_bit
 
     def hook(ch, value, epoch):
-        tpu_bits[ch.prn].append((int(epoch), int(value)))
+        ours_bits[ch.prn].append((int(epoch), int(value)))
         return orig(ch, value, epoch)
 
     rx._push_channel_bit = hook
     report = rx.run(bb)
-    tpu = {ch.prn: ch for ch in report.channels}
-    return fw, tpu_bits, tpu, truth
+    ours = {ch.prn: ch for ch in report.channels}
+    return fw, ours_bits, ours, truth
 
 
 def test_firmware_pipeline_tracks_and_syncs(both_pipelines):
@@ -94,23 +94,23 @@ def test_firmware_pipeline_tracks_and_syncs(both_pipelines):
 
 def test_nav_bits_bit_exact_between_pipelines(both_pipelines):
     """Every firmware nav bit on the shared 20 ms grid must equal the
-    TPU pipeline's bit for the same epoch window, exactly (one global
+    JAX pipeline's bit for the same epoch window, exactly (one global
     polarity inversion per channel allowed — the firmware flips its
     sign stream internally once its inverted-preamble detector fires,
-    nav_data.c:281-291, while the TPU pipeline emits pre-polarity bits
+    nav_data.c:281-291, while the JAX pipeline emits pre-polarity bits
     and resolves polarity in the framer)."""
-    fw, tpu_bits, _, _ = both_pipelines
+    fw, ours_bits, _, _ = both_pipelines
     for prn, r in fw.items():
         fb = np.asarray(r["bits"])
         fs = np.asarray(r["bit_times"])       # exact bit-start epochs
-        tt = np.asarray([t for t, _ in tpu_bits[prn]])
-        tb = np.asarray([v for _, v in tpu_bits[prn]])
+        tt = np.asarray([t for t, _ in ours_bits[prn]])
+        tb = np.asarray([v for _, v in ours_bits[prn]])
         agree = disagree = unmatched = 0
         for v, s in zip(fb, fs):
             js = np.nonzero(np.abs(tt - s) <= 1)[0]
             if len(js) == 0:
                 # a noise flip re-anchored the firmware grid off the
-                # true boundary for a few bits — no TPU counterpart
+                # true boundary for a few bits — no JAX counterpart
                 unmatched += 1
                 continue
             if v == tb[js[0]]:
@@ -128,7 +128,7 @@ def test_nav_bits_bit_exact_between_pipelines(both_pipelines):
 
 def test_loop_states_agree_between_pipelines(both_pipelines):
     """Tracked Doppler within firmware PLL jitter; code delay within
-    the firmware's sub-chip quantization class.  The TPU code phase is
+    the firmware's sub-chip quantization class.  The JAX code phase is
     the received-chip-index convention; the firmware's
     code_phase_fine/16 is the delay convention (1023 - cp).  Both carry
     small opposite-sign convention biases of a few 1/16-chip samples
@@ -136,13 +136,13 @@ def test_loop_states_agree_between_pipelines(both_pipelines):
     correlator bias vs the conditioner's decimation group delay), so
     the bound is 5 fine units = 0.31 chip — measured steady difference
     is ~0.24 chip with ~0.03 chip of jitter."""
-    fw, _, tpu, _ = both_pipelines
+    fw, _, ours, _ = both_pipelines
     for prn, r in fw.items():
-        ch = tpu[prn]
+        ch = ours[prn]
         fw_dop = float(np.mean(r["doppler_hz"][-20:]))
         assert abs(fw_dop - ch.doppler_hz) < 5.0, (
             prn, fw_dop, ch.doppler_hz)
         fw_delay = float(np.mean(r["code_phase_fine"][-20:])) / 16.0
-        tpu_delay = (1023.0 - ch.code_phase_chips) % 1023.0
-        err = (fw_delay - tpu_delay + 511.5) % 1023.0 - 511.5
-        assert abs(err) < 0.32, (prn, fw_delay, tpu_delay, err)
+        ours_delay = (1023.0 - ch.code_phase_chips) % 1023.0
+        err = (fw_delay - ours_delay + 511.5) % 1023.0 - 511.5
+        assert abs(err) < 0.32, (prn, fw_delay, ours_delay, err)

@@ -5,7 +5,7 @@ firmware pipeline: cold frequency search (acquisition.c:280-416,
 hint-free), staged code search, TDM tracking, accurate swap-time
 refinement (nav_data.c:145-218), the subframe-time ledger with the
 ZERO-moment latch, and relative pseudoranges
-(gps_master.c:159-329).  The TPU pipeline runs the SAME wire-format
+(gps_master.c:159-329).  The JAX pipeline runs the SAME wire-format
 capture cold (no Doppler hints) and must agree with the firmware
 pipeline on:
 
@@ -24,7 +24,7 @@ pipeline on:
 Both pipelines run their code filters (ENABLE_CODE_FILTER=1 is the
 firmware's production default, config.h:36): the firmware averages
 ~1 s windows (timestamped at window center, the same compensation it
-applies to tow_s), the TPU receiver runs its drift-detrended filter.
+applies to tow_s), the JAX receiver runs its drift-detrended filter.
 Filtering takes the DLL jitter out of the comparison so the bound
 tests the LEDGER math (boundary times, wrap handling, reference
 convention), not loop noise.
@@ -32,7 +32,7 @@ convention), not loop noise.
 Nav bits compare bit-exactly on the raw (pre-polarity) convention:
 the oracle undoes its inv_polarity_flag at emission, so the firmware's
 mid-run polarity discovery (nav_data.c:285-305) cannot flip the
-stream relative to the TPU scan's pre-polarity bits.
+stream relative to the JAX scan's pre-polarity bits.
 """
 
 import json
@@ -78,7 +78,7 @@ def cold_pipelines(tmp_path_factory):
     # firmware pipeline, fully cold (hints all 0 = cold frequency search)
     fw = native.firmware_master_run(words, list(PRNS))
 
-    # TPU pipeline, fully cold (no doppler hints), code filter off
+    # JAX pipeline, fully cold (no doppler hints), code filter off
     bb = np.asarray(reference_to_baseband(native.unpack_bits16(words)))
     cfg = ReceiverConfig(
         prns=PRNS,
@@ -87,17 +87,17 @@ def cold_pipelines(tmp_path_factory):
         track_block_epochs=500,
     )
     rx = Receiver(cfg)
-    tpu_bits = {p: [] for p in PRNS}
+    ours_bits = {p: [] for p in PRNS}
     orig = rx._push_channel_bit
 
     def bit_hook(ch, value, epoch):
-        tpu_bits[ch.prn].append((int(epoch), int(value)))
+        ours_bits[ch.prn].append((int(epoch), int(value)))
         return orig(ch, value, epoch)
 
     rx._push_channel_bit = bit_hook
     # observable capture at every block end once all channels hold a
     # subframe boundary (form_observations: the production path)
-    tpu_obs = []     # (epoch_ms, {prn: P_m})
+    ours_obs = []     # (epoch_ms, {prn: P_m})
 
     def status_cb(r):
         ready = [c for c in r.channels if c.subframe_time_ms > 0]
@@ -112,18 +112,18 @@ def cold_pipelines(tmp_path_factory):
         epoch = r.epoch_cursor - 1
         obs = form_observations(chobs, epoch)
         if obs:
-            tpu_obs.append((epoch, {o.sat: o.P for o in obs}))
+            ours_obs.append((epoch, {o.sat: o.P for o in obs}))
 
     report = rx.run(bb, status_callback=status_cb)
-    tpu = {ch.prn: ch for ch in report.channels}
-    return fw, tpu_bits, tpu, tpu_obs, truth
+    ours = {ch.prn: ch for ch in report.channels}
+    return fw, ours_bits, ours, ours_obs, truth
 
 
 def test_cold_frequency_search_parity(cold_pipelines):
-    """The firmware's cold frequency search (hint-free) and the TPU
+    """The firmware's cold frequency search (hint-free) and the JAX
     acquisition land on the same 500 Hz bin (+/- one bin of grid
     quantization at bin-edge Dopplers) for every PRN."""
-    fw, _, tpu, _, truth = cold_pipelines
+    fw, _, ours, _, truth = cold_pipelines
     by_prn = {s["prn"]: s for s in truth["sats"]}
     assert fw["tracking_count"] == len(PRNS)
     for chd in fw["channels"]:
@@ -132,23 +132,23 @@ def test_cold_frequency_search_parity(cold_pipelines):
         true_dop = by_prn[prn]["doppler_hz"]
         assert abs(chd["found_freq_hz"] - true_dop) <= 500.0, (
             prn, chd["found_freq_hz"], true_dop)
-        # TPU cold acquisition agrees with the oracle's found bin
-        tpu_dop = tpu[prn].acq.doppler_hz
-        assert abs(tpu_dop - chd["found_freq_hz"]) <= 500.0, (
-            prn, tpu_dop, chd["found_freq_hz"])
+        # JAX cold acquisition agrees with the oracle's found bin
+        ours_dop = ours[prn].acq.doppler_hz
+        assert abs(ours_dop - chd["found_freq_hz"]) <= 500.0, (
+            prn, ours_dop, chd["found_freq_hz"])
 
 
 def test_cold_nav_bits_bit_exact(cold_pipelines):
-    """Nav bits from the fully-cold firmware pipeline match the TPU
+    """Nav bits from the fully-cold firmware pipeline match the JAX
     pipeline bit-exactly up to the 0/180 slip-segment contract
     (tests/parity_util.py: global inversion, a few long slip segments,
     junk bits only at transitions)."""
     from parity_util import assert_bits_piecewise
 
-    fw, tpu_bits, _, _, _ = cold_pipelines
+    fw, ours_bits, _, _, _ = cold_pipelines
     for chd in fw["channels"]:
         assert_bits_piecewise(
-            "cold", chd["prn"], chd, tpu_bits, min_matched=300)
+            "cold", chd["prn"], chd, ours_bits, min_matched=300)
 
 
 def test_relative_pseudorange_parity(cold_pipelines):
@@ -168,8 +168,8 @@ def test_relative_pseudorange_parity(cold_pipelines):
     dither is EXACTLY +/-1 ms; anything else fails).  A ledger defect
     is a >=300 km (1 ms) or ~300 m (1 epoch at the bit grid) jump —
     far above every bound."""
-    fw, _, _, tpu_obs, _ = cold_pipelines
-    assert len(tpu_obs) >= 10, "TPU pipeline produced too few obs epochs"
+    fw, _, _, ours_obs, _ = cold_pipelines
+    assert len(ours_obs) >= 10, "JAX pipeline produced too few obs epochs"
     ft = np.asarray(fw["pr_times_ms"], np.float64)
     fpr = np.asarray(fw["pseudorange_m"])          # (n_ch, n_pr)
     assert fpr.shape[1] >= 10, "oracle produced too few pseudoranges"
@@ -194,7 +194,7 @@ def test_relative_pseudorange_parity(cold_pipelines):
         step_iv = [(fts[k], fts[k + 1])
                    for k in np.nonzero(
                        np.abs(np.diff(d_fw)) > 0.5 * light_ms)[0]]
-        for epoch, pmap in tpu_obs:
+        for epoch, pmap in ours_obs:
             if epoch < ft[0] + 1200.0 or epoch > fts[-1]:
                 continue
             if any(a < epoch < b for a, b in step_iv):
@@ -215,7 +215,7 @@ def test_relative_pseudorange_parity(cold_pipelines):
         # (nav_data.c:145-218 swap_pos; observed as accurate_swap_time
         # flapping 6<->7 on PRN 24 in this very capture) — each flap
         # shifts that channel's fw pseudorange by EXACTLY one light-ms
-        # for one subframe interval.  The TPU ledger (median dejitter,
+        # for one subframe interval.  The JAX ledger (median dejitter,
         # runtime.receiver.dejitter_boundary) does not carry the quirk,
         # so the parity contract is: every excursion is exactly +/-1
         # light-ms (the firmware's own quantization, never anything
@@ -232,7 +232,7 @@ def test_relative_pseudorange_parity(cold_pipelines):
                                              cnts.tolist())))
         worst = max(worst, float(np.abs(sub_ms).max()))
         # sub-ms agreement holds through ledger excursions too
-        # (~4.5 sigma of the correlated DLL jitter) — a single TPU
+        # (~4.5 sigma of the correlated DLL jitter) — a single receiver
         # dejitter slip would land at >= 300 m (one epoch) and fail
         assert np.abs(sub_ms).max() < 160.0, (prn, np.abs(sub_ms).max())
         sel0 = ms_class == 0

@@ -109,20 +109,15 @@ def test_halo_extend_blocks():
 
 def test_dryrun_multichip_entrypoints():
     """The driver contract: __graft_entry__ must compile and run."""
-    import sys
-
-    sys.path.insert(0, "/root/repo")
     import __graft_entry__ as ge
 
     fn, args = ge.entry()
-    ps2, ts, digest = fn(*args)
-    # production per-block program: carried kernel state + TrackState +
-    # on-device BlockDigest over 32 channels
+    ts, digest = fn(*args)
+    # the Receiver's per-block program: TrackState + on-device
+    # BlockDigest over 32 channels
     assert np.asarray(digest.bit_count).shape == (32,)
     assert np.asarray(ts.code_phase_chips).shape == (32,)
-    fn2, args2 = ge.entry_jnp_scan()
-    state, outs = fn2(*args2)
-    assert np.asarray(outs.ip).shape == (100, 32)
+    assert np.asarray(ts.epoch_idx).tolist() == [100] * 32
     ge.dryrun_multichip(min(8, len(jax.devices())))
 
 
@@ -153,7 +148,7 @@ def test_acquire_sharded_applies_doppler_hints():
 
 
 def test_acquire_sharded_matmul_dft():
-    """Mesh-sharded acquisition on the MXU matmul-DFT path finds the
+    """Mesh-sharded acquisition on the matmul-DFT path finds the
     planted satellite with the same verdicts as the FFT path."""
     from stm32f4_sdr_gps_tpu.parallel.streaming import acquire_sharded
 

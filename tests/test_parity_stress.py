@@ -13,10 +13,10 @@ format before choosing the points (tools/parity_debug.py probes):
   (tracking.c:175-209) so residual frequency errors >~100 Hz pull in
   only stochastically, and the project's own docs put its practical
   sensitivity near 45 dBHz behind an analog front end.
-* the TPU pipeline keeps decoding well below that (its loops update
+* the JAX pipeline keeps decoding well below that (its loops update
   every epoch and the weak-signal chain goes to ~29 dBHz), so below
   45 dBHz the asserted contract switches from "bit-exact parity" to
-  "parity on every channel the firmware still decodes, plus the TPU
+  "parity on every channel the firmware still decodes, plus the JAX
   pipeline's strictly-wider margin" — the documented, understood
   divergence.
 
@@ -49,7 +49,7 @@ NATIVE_DIR = pathlib.Path(__file__).resolve().parent.parent / "native"
 # the firmware's own cold frequency search would hand to tracking
 CHANNELS = ((24, 500), (2, -2500), (15, -2200), (7, -3000))
 
-# Per-point TPU presets: BELOW the firmware's margin the honest
+# Per-point JAX presets: BELOW the firmware's margin the honest
 # comparison runs the framework at ITS OWN appropriate depth — longer
 # non-coherent acquisition and grid-locked coherent bit extraction
 # (config presets that exist precisely for low C/N0; the firmware has
@@ -64,7 +64,7 @@ POINTS = [
     # channel on the pre-round-5 capture and 0 after the generator's
     # subframe-1 IODC fix changed the chip stream, so the measured fw
     # margin on the current realization is (42, 45] dBHz (all 4 at 45
-    # clean).  The TPU pipeline decodes all channels at every point.
+    # clean).  The JAX pipeline decodes all channels at every point.
     ("cn0_42", 42.0, 30000, [], 0, True),
     ("cn0_38", 38.0, 30000, [], 0, True),
     # 2 ppm TCXO shifts the received carrier by ~-3.15 kHz — fixed
@@ -77,14 +77,14 @@ POINTS = [
     # channel on the pre-round-5 capture and lost all four when the
     # generator's subframe-1 IODC fix changed the chip stream (same
     # C/N0, same impairments).  That razor-thin margin under
-    # TCXO+multipath IS the documented divergence; the TPU pipeline
+    # TCXO+multipath IS the documented divergence; the JAX pipeline
     # must decode all four channels regardless (asserted below).
     ("cn0_45_tcxo_mp", 45.0, 35000,
      ["--tcxo-ppm", "2", "--multipath", "24,1.2,0.4,0.3"], 0, True),
 ]
 COLD_POINTS = {"cn0_45_tcxo_mp"}
-# TPU receiver depth per point (see ACQ_DEEP/TRK_CBV above)
-TPU_PRESETS = {
+# JAX receiver depth per point (see ACQ_DEEP/TRK_CBV above)
+OUR_PRESETS = {
     "cn0_42": (ACQ_DEEP, TRK_CBV),
     "cn0_38": (ACQ_DEEP, TRK_CBV),
 }
@@ -104,7 +104,7 @@ def _gen_capture(tmp_path, cn0, duration_ms, extra):
     return np.fromfile(cap, dtype=np.uint16)
 
 
-def _run_tpu(words, cold=False, block_epochs=100,
+def _run_ours(words, cold=False, block_epochs=100,
              acq_kwargs=None, track_kwargs=None):
     bb = np.asarray(reference_to_baseband(native.unpack_bits16(words)))
     cfg = ReceiverConfig(
@@ -119,11 +119,11 @@ def _run_tpu(words, cold=False, block_epochs=100,
         **(acq_kwargs or {}),
     )
     rx = Receiver(cfg)
-    tpu_bits = {p: [] for p, _ in CHANNELS}
+    ours_bits = {p: [] for p, _ in CHANNELS}
     orig = rx._push_channel_bit
 
     def hook(ch, value, epoch):
-        tpu_bits[ch.prn].append((int(epoch), int(value)))
+        ours_bits[ch.prn].append((int(epoch), int(value)))
         return orig(ch, value, epoch)
 
     rx._push_channel_bit = hook
@@ -138,15 +138,15 @@ def _run_tpu(words, cold=False, block_epochs=100,
     report = rx.run(bb, status_callback=status_cb)
     synced = {c.prn: c.bit_synced and c.bit_count > 100
               for c in report.channels}
-    return tpu_bits, traj, synced
+    return ours_bits, traj, synced
 
 
-def _assert_bits_match(point_id, prn, fw_ch, tpu_bits):
+def _assert_bits_match(point_id, prn, fw_ch, ours_bits):
     """Bit-exact stream comparison up to the 0/180 slip-segment
     contract — see tests/parity_util.py."""
     from parity_util import assert_bits_piecewise
 
-    assert_bits_piecewise(point_id, prn, fw_ch, tpu_bits)
+    assert_bits_piecewise(point_id, prn, fw_ch, ours_bits)
 
 
 def _assert_trajectory(point_id, prn, fw_ch, traj):
@@ -191,8 +191,8 @@ def test_parity_under_stress(tmp_path, point_id, cn0, duration_ms,
     else:
         fw = {prn: native.firmware_receiver_run(words, prn, hint)
               for prn, hint in CHANNELS}
-    acq_kwargs, track_kwargs = TPU_PRESETS.get(point_id, ({}, {}))
-    tpu_bits, traj, tpu_synced = _run_tpu(
+    acq_kwargs, track_kwargs = OUR_PRESETS.get(point_id, ({}, {}))
+    ours_bits, traj, ours_synced = _run_ours(
         words, cold=cold, acq_kwargs=acq_kwargs, track_kwargs=track_kwargs)
 
     fw_synced = [prn for prn, r in fw.items()
@@ -201,11 +201,11 @@ def test_parity_under_stress(tmp_path, point_id, cn0, duration_ms,
     assert len(fw_synced) >= min_fw_synced, (
         point_id, fw_synced, "the firmware margin moved — re-probe "
         "(tools/parity_debug.py) and update POINTS")
-    # the TPU pipeline's margin is a strict superset of the firmware's:
+    # the JAX pipeline's margin is a strict superset of the firmware's:
     # every channel decodes at every point, including where the
     # firmware model has already fallen off (documented divergence)
-    assert all(tpu_synced.values()), (point_id, tpu_synced)
+    assert all(ours_synced.values()), (point_id, ours_synced)
 
     for prn in fw_synced:
-        _assert_bits_match(point_id, prn, fw[prn], tpu_bits)
+        _assert_bits_match(point_id, prn, fw[prn], ours_bits)
         _assert_trajectory(point_id, prn, fw[prn], traj)

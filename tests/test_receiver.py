@@ -132,39 +132,3 @@ def test_subframe_times_consistent(report_and_receiver):
     assert times.max() - times.min() <= np.ceil(max(DELAYS_MS)) + 1
     tows = {ch.subframe_tow_s for ch in report.channels}
     assert len(tows) == 1  # same boundary label on every channel
-
-
-def test_receiver_runs_on_in_kernel_scan():
-    """Full Receiver end-to-end on the production TPU kernel
-    (TrackConfig.in_kernel_scan; Pallas interpreter here): acquisition,
-    pretrack handoff, the in-kernel tracking scan, and host nav-bit
-    flow all work through the same Receiver.run() as the reference
-    path — all channels TRACKING with nav bits accumulating."""
-    from stm32f4_sdr_gps_tpu.config import ReceiverConfig, TrackConfig
-    from stm32f4_sdr_gps_tpu.runtime.receiver import Receiver
-
-    num_epochs = 700           # run-in + a couple hundred bits at CIB=3
-    x, _ = _make_capture(num_epochs, seed=23)
-    cfg = ReceiverConfig(
-        prns=PRNS,
-        track=TrackConfig(codes_in_bit=CIB,
-                          pll_bad_state_threshold=10**9,
-                          in_kernel_scan=True,
-                          pallas_interpret=True),
-        enable_position=False,
-    )
-    rx = Receiver(cfg)
-    assert rx._digest_active
-    rx.run(x)
-    assert len(rx.channels) == len(PRNS)
-    for ch in rx.channels:
-        assert ch.state_name == "TRACKING"
-        assert ch.bit_count > 50, (ch.prn, ch.bit_count)
-    # the digest path carries the kernel's PallasScanState between
-    # blocks (ramp cache included) and keeps the TrackState view aliased
-    assert rx._pallas_carry is not None
-    assert rx.track_state is rx._pallas_carry_ref
-    # a host-side mutation of track_state invalidates the carry
-    rx.track_state = rx.track_state._replace(
-        doppler_hz=rx.track_state.doppler_hz + 1.0)
-    assert rx.track_state is not rx._pallas_carry_ref

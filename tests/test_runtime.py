@@ -431,34 +431,3 @@ def test_demotion_respects_grace_window():
     dropped = rx.drop_dead_channels()
     assert sorted(dropped) == [2, 3]
     assert [ch.prn for ch in rx.channels] == [1]
-
-
-def test_checkpoint_code_table_is_backend_portable(tmp_path, monkeypatch):
-    """A checkpoint written where the jnp-scan table was in use must
-    resume correctly on a backend that resolves to the Pallas kernel
-    (and vice versa): the loader rebuilds the device table from the
-    canonical raw table instead of trusting the stored backend form
-    (found by tools/tpu_e2e.py: a CPU-bootstrap checkpoint resumed on
-    the TPU fed the raw table to the kernel - garbage correlations)."""
-    from stm32f4_sdr_gps_tpu import config as config_mod
-    from stm32f4_sdr_gps_tpu.runtime.checkpoint import (
-        load_receiver,
-        save_receiver,
-    )
-
-    x, _truth = _make_capture(600, seed=4)
-    rx = Receiver(_cfg())
-    rx.acquire_all(x)
-    rx.start_tracking(x)
-    assert rx.code_table.shape[-1] == 1023      # jnp form on CPU
-    p = save_receiver(str(tmp_path / "ck"), rx)
-
-    # resume "on a TPU": the auto default resolves to the Pallas
-    # kernel, whose table is the doubled upsampled form
-    monkeypatch.setattr(config_mod, "_default_platform", lambda: "tpu")
-    rx2 = load_receiver(p)
-    assert rx2.code_table.shape[-1] >= 2 * 2046
-    assert rx2.code_table_np.shape[-1] == 1023
-    monkeypatch.setattr(config_mod, "_default_platform", lambda: "cpu")
-    rx3 = load_receiver(p)
-    assert rx3.code_table.shape[-1] == 1023

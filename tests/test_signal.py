@@ -85,7 +85,7 @@ def test_reference_plan_end_to_end_sim():
 
 
 def test_device_conditioner_matches_host():
-    """reference_to_baseband_device (the TPU ingest jit) must agree with
+    """reference_to_baseband_device (the JAX ingest jit) must agree with
     the host conditioner on the same packed wire words, including when
     the stream is processed in whole-epoch chunks."""
     import jax

@@ -1,8 +1,7 @@
 """Measure the HOST side of the receiver loop vs channel count.
 
-The kernel capacity claim (~17 400 real-time channels from the 256-ch
-in-kernel scan point) is device-only; the per-channel host work — the
-digest consumption loop, NavFramer bit pushes, subframe decode,
+A device channel capacity is device-only; the per-channel host work —
+the digest consumption loop, NavFramer bit pushes, subframe decode,
 ChannelStatus bookkeeping (runtime.receiver._consume_digest) — scales
 linearly with channels and bounds the SYSTEM.  This probe times exactly
 that path with realistic digests: every channel streams a real LNAV
@@ -11,7 +10,7 @@ bit per codes_in_bit epochs, plus the fixed-cadence work.
 
 Output: one JSON line per channel count with host ms/block,
 us/epoch/channel, and the implied system ceiling when combined with a
-given kernel x-real-time (see docs/SCALING.md §system-ceiling).
+given device x-real-time for the tracking block.
 
 Usage: python tools/host_cost_probe.py [block_epochs=2000] [blocks=30]
 """

@@ -64,8 +64,8 @@ def fw_master(tag, words):
     return fw
 
 
-def tpu_master(tag, words):
-    p = CACHE / f"tpu_{tag}.pkl"
+def our_master(tag, words):
+    p = CACHE / f"ours_{tag}.pkl"
     if p.exists():
         return pickle.loads(p.read_bytes())
     bb = np.asarray(reference_to_baseband(native.unpack_bits16(words)))
@@ -76,15 +76,15 @@ def tpu_master(tag, words):
         track_block_epochs=500,
     )
     rx = Receiver(cfg)
-    tpu_bits = {p_: [] for p_ in PRNS}
+    ours_bits = {p_: [] for p_ in PRNS}
     orig = rx._push_channel_bit
 
     def bit_hook(ch, value, epoch):
-        tpu_bits[ch.prn].append((int(epoch), int(value)))
+        ours_bits[ch.prn].append((int(epoch), int(value)))
         return orig(ch, value, epoch)
 
     rx._push_channel_bit = bit_hook
-    tpu_obs = []
+    ours_obs = []
 
     def status_cb(r):
         ready = [c for c in r.channels if c.subframe_time_ms > 0]
@@ -99,25 +99,25 @@ def tpu_master(tag, words):
         epoch = r.epoch_cursor - 1
         obs = form_observations(chobs, epoch)
         if obs:
-            tpu_obs.append((epoch, {o.sat: o.P for o in obs}))
+            ours_obs.append((epoch, {o.sat: o.P for o in obs}))
 
     report = rx.run(bb, status_callback=status_cb)
     out = dict(
-        bits=tpu_bits, obs=tpu_obs,
+        bits=ours_bits, obs=ours_obs,
         acq_dop={ch.prn: ch.acq.doppler_hz for ch in report.channels},
     )
     p.write_bytes(pickle.dumps(out))
     return out
 
 
-def bit_analysis(fw, tpu_bits):
+def bit_analysis(fw, ours_bits):
     print("==== nav bits ====")
     for chd in fw["channels"]:
         prn = chd["prn"]
         fb = np.asarray(chd["bits"])
         fs = np.asarray(chd["bit_times"])
-        tt = np.asarray([t for t, _ in tpu_bits[prn]])
-        tb = np.asarray([v for _, v in tpu_bits[prn]])
+        tt = np.asarray([t for t, _ in ours_bits[prn]])
+        tb = np.asarray([v for _, v in ours_bits[prn]])
         xs, times = [], []
         unmatched = 0
         for v, s in zip(fb, fs):
@@ -141,7 +141,7 @@ def bit_analysis(fw, tpu_bits):
                   f"{[int(times[i+1]) for i in sw[:10]]}")
 
 
-def pr_analysis(fw, tpu_obs):
+def pr_analysis(fw, ours_obs):
     print("==== relative pseudoranges ====")
     ft = np.asarray(fw["pr_times_ms"], np.float64)
     fpr = np.asarray(fw["pseudorange_m"])
@@ -150,12 +150,12 @@ def pr_analysis(fw, tpu_obs):
         print("no fw pseudoranges!")
         return
     print(f"fw series: {len(ft)} points, t=[{ft[0]:.0f},{ft[-1]:.0f}]")
-    print(f"tpu obs epochs: {len(tpu_obs)}; "
-          f"range {tpu_obs[0][0] if tpu_obs else '-'}"
-          f"..{tpu_obs[-1][0] if tpu_obs else '-'}")
+    print(f"ours obs epochs: {len(ours_obs)}; "
+          f"range {ours_obs[0][0] if ours_obs else '-'}"
+          f"..{ours_obs[-1][0] if ours_obs else '-'}")
     t_ok = ft >= ft[0] + 1000.0
     errs = {prn: [] for prn in prn_order[1:]}
-    for epoch, pmap in tpu_obs:
+    for epoch, pmap in ours_obs:
         if epoch < ft[0] + 1200.0 or epoch > ft[-1]:
             continue
         fw_p = {prn: np.interp(epoch, ft[t_ok], fpr[i][t_ok])
@@ -163,8 +163,8 @@ def pr_analysis(fw, tpu_obs):
         ref = prn_order[0]
         for prn in prn_order[1:]:
             d_fw = fw_p[prn] - fw_p[ref]
-            d_tpu = pmap[prn] - pmap[ref]
-            errs[prn].append((epoch, d_tpu - d_fw))
+            d_ours = pmap[prn] - pmap[ref]
+            errs[prn].append((epoch, d_ours - d_fw))
     for prn, rows in errs.items():
         if not rows:
             print(f"PRN {prn}: no comparable epochs")
@@ -195,9 +195,9 @@ def main():
         print(f"PRN {chd['prn']}: freq={chd['found_freq_hz']} "
               f"track_ms={chd['track_start_ms']} sync={chd['sync_ms']} "
               f"subframes={chd['subframes']} bits={len(chd['bits'])}")
-    tpu = tpu_master(tag, words)
-    bit_analysis(fw, tpu["bits"])
-    pr_analysis(fw, tpu["obs"])
+    ours = our_master(tag, words)
+    bit_analysis(fw, ours["bits"])
+    pr_analysis(fw, ours["obs"])
 
 
 if __name__ == "__main__":
